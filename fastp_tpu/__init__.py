@@ -1,29 +1,14 @@
-"""fastp_tpu: TPU-native FASTQ preprocessing framework."""
-import os
+"""fastp_tpu: FASTQ preprocessing on an accelerator with JAX."""
 
-# Persistent XLA compilation cache: the jitted pipeline steps take ~30s to
-# compile on TPU; caching makes every run after the first start instantly.
-# Set FASTP_TPU_NO_COMPILE_CACHE=1 to disable. Must be configured before the
-# first jax import in the process.
-if not os.environ.get("FASTP_TPU_NO_COMPILE_CACHE"):
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          os.path.join(os.path.expanduser("~"), ".cache",
-                                       "fastp_tpu_xla"))
-    os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-
-# Allocator hardening for virtualized hosts with slow page faults
-# (measured 30-65us per 4KB first-touch here — ~500x bare metal; every
-# steady-state allocation that leaves and re-enters the kernel is a
-# per-batch tax):
+# Allocator hardening for the host's batch-sized buffers:
 #  * M_MMAP_THRESHOLD (-3) = 64MB: keep batch-sized buffers in malloc
 #    arenas instead of mmap/munmap-per-free, so pages stay resident.
 #  * M_TRIM_THRESHOLD (-1) = 1GB: without this, NON-MAIN arenas (every
 #    worker thread in the prep/upload/fetch pools gets one) shrink their
 #    heaps back to the kernel on free() at the default 128KB threshold,
 #    re-faulting the same pages every batch.
-#  * glibc.malloc.hugetlb=1 for child processes (see server/bench): glibc
-#    then MADV_HUGEPAGEs arena growth, turning 4KB faults into 2MB faults
-#    (measured 65us -> 2.3us per 4KB-equivalent on this host).
+#  * glibc.malloc.hugetlb=1 for child processes (see __main__/bench): glibc
+#    then MADV_HUGEPAGEs arena growth, turning 4KB faults into 2MB faults.
 try:
     import ctypes as _ctypes
     _libc = _ctypes.CDLL(None)

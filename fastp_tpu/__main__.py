@@ -1,9 +1,9 @@
 import os
 import sys
 
-# On hosts where first-touch page faults are slow (virtualized memory,
-# 30-65us/4KB measured), glibc.malloc.hugetlb=1 makes glibc MADV_HUGEPAGE
-# its arenas (2MB faults, ~28x cheaper per byte).  The tunable is only
+# On hosts where first-touch page faults are slow (virtualized memory),
+# glibc.malloc.hugetlb=1 makes glibc MADV_HUGEPAGE its arenas (2MB faults
+# instead of 4KB ones).  The tunable is only
 # read at process start, so re-exec once with it set.  Skip for the thin
 # client path (no heavy allocation) and when explicitly disabled.
 if (os.name == "posix" and "glibc.malloc.hugetlb" not in

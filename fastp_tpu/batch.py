@@ -4,7 +4,7 @@ Scans a directory for FASTQ files, pairs ``*R1*``/``*R2*`` companions,
 preprocesses every file/pair, and aggregates all JSON reports into
 ``overall.html``.
 
-TPU-native design: instead of fanning out one process per file (the
+Design: instead of fanning out one process per file (the
 reference spawns fastp processes, parallel.py:146-158), files are streamed
 sequentially through ONE resident pipeline per (SE/PE, options) signature so
 the jitted device step is compiled once and reused across files; `--parallel`

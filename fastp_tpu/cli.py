@@ -20,7 +20,7 @@ from .config import (Options, error_exit, num2qual, FASTP_TPU_VER,
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="fastp_tpu", add_help=True,
-        description="fastp_tpu: TPU-native ultra-fast all-in-one FASTQ preprocessor")
+        description="fastp_tpu: ultra-fast all-in-one FASTQ preprocessor on an accelerator")
     a = p.add_argument
     # I/O
     a("-i", "--in1", default="", help="read1 input file name")
@@ -306,24 +306,40 @@ def options_from_args(args, argv) -> Options:
     return opt
 
 
+def shard_child_env(base, k: int, n: int, cards, servers):
+    """Environment of --local_processes child k of n: its shard, its one
+    card, and its resident server when FASTP_TPU_SERVERS names them."""
+    env = dict(base)
+    # one card per child: cards[k] on a GPU host, index k otherwise (a CPU
+    # backend ignores it); children routed to servers are thin clients, so
+    # any N shares the cards
+    slot = k % len(cards) if servers and cards else k
+    env["CUDA_VISIBLE_DEVICES"] = cards[slot] if slot < len(cards) else str(k)
+    env["FASTP_TPU_SHARD_INDEX"] = str(k)
+    env["FASTP_TPU_SHARD_COUNT"] = str(n)
+    env.pop("FASTP_TPU_LOCAL_PROCESSES", None)
+    if servers:
+        env["FASTP_TPU_SERVER"] = servers[k % len(servers)]
+    return env
+
+
 def _spawn_local_shards(argv, n: int, opt) -> int:
     """Self-spawning same-host scale-out: run the job as N record-range-
     sharded processes and merge their stats into one report.
 
     The reference scales one process with -w N worker threads
-    (reference: src/peprocessor.cpp:750-754, src/options.cpp:14); the
-    TPU-native equivalent spawns N single-chip processes, because the
-    scaling wall on a TPU host is host-side produce (tokenize/pack/route on
-    the CPU), not device compute — separate processes get separate GILs,
-    page tables, and chips.  Children reuse the multi-host machinery
-    (parallel/multihost.py): record-aligned input shards, per-shard
-    "0001."-prefixed outputs, exact cross-shard dedup, and a single merged
-    JSON/HTML report from shard 0 via the same-host filesystem exchange.
+    (reference: src/peprocessor.cpp:750-754, src/options.cpp:14); here the
+    job runs as N processes, each with its own GIL, page tables and card.
+    Children reuse the multi-host machinery (parallel/multihost.py):
+    record-aligned input shards, per-shard "0001."-prefixed outputs, exact
+    cross-shard dedup, and a single merged JSON/HTML report from shard 0
+    via the same-host filesystem exchange.
 
-    Chip assignment: FASTP_TPU_SERVERS=sock0,sock1,... routes child k to
-    resident server k%len (one pre-warmed server per chip — the production
-    layout); FASTP_TPU_ASSIGN_CHIPS=1 instead pins child k to chip k via
-    the libtpu single-chip-per-process env recipe for in-process backends.
+    Card assignment: child k sees one card, CUDA_VISIBLE_DEVICES=k, so no
+    two JAX processes share a card; on a GPU host N may not exceed the
+    visible cards.  FASTP_TPU_SERVERS=sock0,sock1,... instead routes child
+    k to resident server k%len (one warm server per card), and then any N
+    is allowed.
     """
     import subprocess
     from .config import error_exit
@@ -345,22 +361,18 @@ def _spawn_local_shards(argv, n: int, opt) -> int:
         i += 1
     servers = [s for s in os.environ.get("FASTP_TPU_SERVERS", "").split(",")
                if s]
+    from .parallel.cards import visible_gpus, check_one_process_per_card
+    cards = visible_gpus()
+    if not servers:
+        try:
+            check_one_process_per_card(n, cards, "--local_processes")
+        except ValueError as e:
+            error_exit(str(e))
     log_dir = os.path.dirname(os.path.abspath(opt.jsonFile)) or "."
     procs = []
     logs = []
     for k in range(n):
-        env = dict(os.environ)
-        env["FASTP_TPU_SHARD_INDEX"] = str(k)
-        env["FASTP_TPU_SHARD_COUNT"] = str(n)
-        env.pop("FASTP_TPU_LOCAL_PROCESSES", None)
-        if servers:
-            env["FASTP_TPU_SERVER"] = servers[k % len(servers)]
-        if os.environ.get("FASTP_TPU_ASSIGN_CHIPS"):
-            # libtpu single-chip-per-process recipe: each child sees a
-            # 1-chip topology and runs coordination-free
-            env["TPU_VISIBLE_DEVICES"] = str(k)
-            env["TPU_PROCESS_BOUNDS"] = "1,1,1"
-            env["TPU_CHIPS_PER_PROCESS_BOUNDS"] = "1,1,1"
+        env = shard_child_env(os.environ, k, n, cards, servers)
         # shard 0 keeps the console (it prints the merged summary); other
         # shards log to files that surface only on failure
         if k == 0:
@@ -400,7 +412,7 @@ def main(argv=None):
     if argv is None:
         argv = sys.argv
     if len(argv) == 1:
-        sys.stderr.write("fastp_tpu: an ultra-fast all-in-one FASTQ preprocessor (TPU-native)\n"
+        sys.stderr.write("fastp_tpu: an ultra-fast all-in-one FASTQ preprocessor (JAX)\n"
                          "version %s\n" % FASTP_TPU_VER)
         build_parser().print_usage(sys.stderr)
         sys.stderr.write(

@@ -37,9 +37,8 @@ _BASE_CODE_F = _BASE_CODE.astype(np.float64)
 import threading
 
 # Bloom-buffer pool for resident-server processes: committing ~1 GB of
-# fresh zero pages costs 6-13 s of write faults on this virtualized host
-# (22-57 us/page, volatile); recycled buffers are re-zeroed off the
-# critical path when the filter is released and stay page-committed.
+# fresh zero pages costs seconds of write faults on a virtualized host;
+# recycled buffers are re-zeroed off the critical path when the filter is released and stay page-committed.
 # Only ONE size class is retained (the most recent) so a server cycling
 # through accuracy levels doesn't accumulate every configuration's peak.
 # `_buf_pending` counts buffers being re-zeroed in the background so a
@@ -57,19 +56,13 @@ _retained_size = [0]  # the ONE size class currently pooled (latest release)
 def _prefault(b: np.ndarray) -> np.ndarray:
     """Commit every page up front (one write per 4KB) in server mode.
 
-    The probe pattern is a uniform random walk over hundreds of MB; on
-    this virtualized host a first-touch write fault costs ~23us, so a
-    fresh lazily-backed buffer pays ~6s of faults spread across the first
-    batches of a big run (measured: 1.07s/32k-pair batch fresh vs 0.08s
-    pre-faulted).  In a resident server the commit runs once — during the
-    pre-READY warm job — and pooled buffers (re-zeroed in place on
-    release) never pay it again.  Gated to server mode because small
-    one-shot jobs (tests, tiny inputs) probe only a few thousand pages:
-    lazy faulting costs them ~50ms where an eager commit would cost
-    seconds.  MADV_HUGEPAGE was tried and removed: with defrag=madvise
-    the kernel attempts direct compaction on every fault and never
-    assembles a huge page on this hypervisor (AnonHugePages stays 0),
-    making faults 75% slower."""
+    The probe pattern is a uniform random walk over hundreds of MB, so a
+    fresh lazily-backed buffer pays its first-touch write faults spread
+    across the first batches of a big run.  In a resident server the
+    commit runs once — during the pre-READY warm job — and pooled buffers
+    (re-zeroed in place on release) never pay it again.  Gated to server
+    mode because small one-shot jobs (tests, tiny inputs) probe only a few
+    thousand pages, where an eager commit would cost more than it saves."""
     # parse the value, not string truthiness: '0'/'false' must disable
     # prefaulting even where server.py setdefault'ed it to '1'
     if os.environ.get("FASTP_TPU_POOL_PREFAULT", "") not in ("", "0", "false"):
@@ -85,8 +78,8 @@ def _acquire_buf(n_bytes: int) -> np.ndarray:
                 return lst.pop()
             if not _buf_pending.get(n_bytes):
                 break  # nothing in flight: allocate fresh
-            # a matching buffer is being re-zeroed (~0.3s/GB memset);
-            # waiting beats a fresh 6-13s pre-fault
+            # a matching buffer is being re-zeroed in place; waiting
+            # beats a fresh pre-fault
             if not _buf_pool_cv.wait(timeout=30.0):
                 break
     return _prefault(np.zeros(n_bytes, np.uint8))

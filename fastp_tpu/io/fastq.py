@@ -79,8 +79,8 @@ class _NativeGzInflater:
         self._h = lib.gz_reader_create()
         self._pend = bytearray()
         # ONE reusable inflate buffer: a fresh multi-MB numpy alloc per
-        # feed costs a first-touch page-fault storm on this host (30-65us
-        # per 4KB fault) that used to dominate the gz path's CPU
+        # feed costs a first-touch page-fault storm on hosts with slow
+        # faults
         self._out = np.empty(1 << 23, np.uint8)
         self._consumed = np.zeros(1, np.int64)
 
@@ -492,12 +492,11 @@ class ArrayFastqReader:
             self._budget = byte_range[1] - byte_range[0]
         # plain seekable files map whole: the tokenizer then reads straight
         # out of the page cache (zero userspace copies — the read()+bytes
-        # concat path costs one full pass of memory traffic per batch,
-        # 10-100ms each under this host's fluctuating memory weather)
+        # concat path costs one full pass of memory traffic per batch)
         self._mm = None
         self._mm_off = self._mm_end = 0
         # FASTP_TPU_NO_MMAP: on hosts with slow first-touch faults
-        # (virtualized memory, 30-65us/4KB) a fresh mmap of a multi-GB
+        # (virtualized memory) a fresh mmap of a multi-GB
         # input faults every page once per RUN; the read() path copies
         # into the (resident-server) process's already-faulted malloc
         # arena instead, so repeat jobs fault ~nothing
@@ -556,8 +555,8 @@ class ArrayFastqReader:
     def _read_more(self, want: Optional[int] = None):
         # For plain files, read everything the caller still needs in ONE
         # call: repeated CHUNK-sized `bytes +=` concats re-copy (and re-
-        # page-fault) the whole pending buffer per append — measured
-        # ~10 ms per extra append at batch sizes.  Gzip keeps CHUNK-sized
+        # page-fault) the whole pending buffer per append.  Gzip keeps
+        # CHUNK-sized
         # compressed reads (the inflate ratio is unknown).
         n = CHUNK if self._zipped or want is None else max(CHUNK, want)
         if self._budget is not None:

@@ -1,8 +1,10 @@
 """ctypes bindings for the native host hot paths (fastp_tpu/native/fastq_native.cpp).
 
-The shared library is compiled on demand with g++ (no pip deps) and cached
-next to the source; callers fall back to the pure-Python implementations when
-a toolchain is unavailable (``get_lib()`` returns None).
+The shared library is compiled on demand with g++ (no pip deps) from the
+tracked fastp_tpu/native/*.cpp into the git-ignored .so next to them, so
+nothing outside the checkout is read or written; callers fall back to the
+pure-Python implementations when a toolchain is unavailable (``get_lib()``
+returns None).
 """
 from __future__ import annotations
 
@@ -10,7 +12,6 @@ import ctypes
 import os
 import subprocess
 import sys
-import tempfile
 import threading
 
 import numpy as np
@@ -50,14 +51,7 @@ def _build(lib_path: str) -> bool:
     return False
 
 
-def _lib_path() -> str:
-    # prefer a writable location: next to the source, else a cache dir
-    cand = os.path.join(_NATIVE_DIR, _LIB_NAME)
-    if os.access(_NATIVE_DIR, os.W_OK) or os.path.exists(cand):
-        return cand
-    cache = os.path.join(tempfile.gettempdir(), "fastp_tpu_native")
-    os.makedirs(cache, exist_ok=True)
-    return os.path.join(cache, _LIB_NAME)
+LIB_PATH = os.path.join(_NATIVE_DIR, _LIB_NAME)  # git-ignored build output
 
 
 def _bind(lib):
@@ -154,6 +148,16 @@ def _bind(lib):
         _i32p, _i32p, ctypes.POINTER(ctypes.c_int64)]      # pre1, pre2, w2
     lib.adrec_create.restype = ctypes.c_void_p
     lib.adrec_create.argtypes = []
+    lib.adrec_create_log.restype = ctypes.c_void_p
+    lib.adrec_create_log.argtypes = []
+    lib.adrec_log_size.restype = ctypes.c_int64
+    lib.adrec_log_size.argtypes = [ctypes.c_void_p]
+    lib.adrec_log_export.restype = None
+    lib.adrec_log_export.argtypes = [ctypes.c_void_p, _i64p]
+    lib.adrec_replay.restype = None
+    lib.adrec_replay.argtypes = [
+        ctypes.c_void_p, _u8p, _i64p, ctypes.c_int64, _u8p, _i64p,
+        ctypes.c_int64, _i64p, ctypes.c_int64]
     lib.adrec_free.restype = None
     lib.adrec_free.argtypes = [ctypes.c_void_p]
     lib.adrec_add_one.restype = None
@@ -199,7 +203,7 @@ def get_lib():
         _lib_tried = True
         if os.environ.get("FASTP_TPU_NO_NATIVE"):
             return None
-        path = _lib_path()
+        path = LIB_PATH
         src_mtime = max((os.path.getmtime(s) for s in _SRCS
                          if os.path.exists(s)), default=0)
         if not os.path.exists(path) or os.path.getmtime(path) < src_mtime:
@@ -460,12 +464,17 @@ class AdapterRecorder:
 
     Owns the two insertion-ordered count maps; all mutations go through
     native code so the per-row PE read-through recording costs no Python.
-    export() rebuilds the plain dicts for reports/state_dict."""
+    export() rebuilds the plain dicts for reports/state_dict.
 
-    def __init__(self):
+    log=True (one shard of a multi-process run): adds are recorded as an
+    event log instead of applied to capped maps; log_state() exports it and
+    replay() applies shard logs, in shard order, to a capped recorder."""
+
+    def __init__(self, log: bool = False):
         self._lib = get_lib()
         assert self._lib is not None
-        self._h = self._lib.adrec_create()
+        self._h = (self._lib.adrec_create_log() if log
+                   else self._lib.adrec_create())
 
     def add_one(self, adapter_bytes: bytes, is_r2: bool, count: int):
         buf = np.frombuffer(adapter_bytes, np.uint8)
@@ -501,19 +510,46 @@ class AdapterRecorder:
             np.ascontiguousarray(lo2, np.int64),
             np.ascontiguousarray(hi2, np.int64), n)
 
-    def export(self, is_r2: bool) -> dict:
+    def _export_raw(self, is_r2: bool):
+        """(keys blob u8, key lengths i64, counts i64) in insertion order."""
         import ctypes as _ct
         ne = _ct.c_int64(0)
         nb = _ct.c_int64(0)
         self._lib.adrec_export_size(self._h, int(is_r2),
                                     _ct.byref(ne), _ct.byref(nb))
         ne, nb = int(ne.value), int(nb.value)
+        keys = np.empty(max(nb, 1), np.uint8)
+        lens = np.empty(max(ne, 1), np.int64)
+        counts = np.empty(max(ne, 1), np.int64)
+        if ne:
+            self._lib.adrec_export(self._h, int(is_r2), keys, lens, counts)
+        return keys[:nb], lens[:ne], counts[:ne]
+
+    def log_state(self) -> dict:
+        """This shard's event log: interned keys per side + (id1, id2,
+        count) events, picklable for the cross-process exchange."""
+        ev = np.empty(3 * self._lib.adrec_log_size(self._h) or 1, np.int64)
+        self._lib.adrec_log_export(self._h, ev)
+        k1, l1, _ = self._export_raw(False)
+        k2, l2, _ = self._export_raw(True)
+        return {"keys1": k1, "lens1": l1, "keys2": k2, "lens2": l2,
+                "events": ev[:3 * self._lib.adrec_log_size(self._h)]}
+
+    def replay(self, log: dict):
+        def arr(a, dt):  # ctypes pointers need at least one element
+            a = np.ascontiguousarray(a, dt)
+            return a if a.size else np.zeros(1, dt)
+        self._lib.adrec_replay(
+            self._h, arr(log["keys1"], np.uint8), arr(log["lens1"], np.int64),
+            len(log["lens1"]), arr(log["keys2"], np.uint8),
+            arr(log["lens2"], np.int64), len(log["lens2"]),
+            arr(log["events"], np.int64), len(log["events"]) // 3)
+
+    def export(self, is_r2: bool) -> dict:
+        keys, lens, counts = self._export_raw(is_r2)
+        ne = len(lens)
         if ne == 0:
             return {}
-        keys = np.empty(nb, np.uint8)
-        lens = np.empty(ne, np.int64)
-        counts = np.empty(ne, np.int64)
-        self._lib.adrec_export(self._h, int(is_r2), keys, lens, counts)
         blob = keys.tobytes().decode("latin-1")
         out = {}
         off = 0

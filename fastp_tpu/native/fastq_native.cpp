@@ -781,8 +781,16 @@ struct AdRecMap {
     std::vector<std::pair<std::string, int64_t>> order;  // insertion order
 };
 
+// Log mode (one shard of a multi-process run): m1/m2 intern every distinct
+// key uncapped, in first-occurrence order, and `events` records each add as
+// (id1, id2, count); -1 = that side of a pair is empty, -2 = a one-sided
+// add to the other map.  Replaying every shard's events in shard order into
+// one capped recorder rebuilds exactly the maps of one process that read
+// the whole input (caps and the pair early return depend on order).
 struct AdRec {
     AdRecMap m1, m2;
+    bool log = false;
+    std::vector<int64_t> events;
 };
 
 inline bool adrec_low_complexity(const uint8_t* s, int64_t len) {
@@ -813,20 +821,64 @@ inline bool adrec_add(AdRecMap& m, const uint8_t* s, int64_t len,
     return true;
 }
 
+inline int64_t adrec_intern(AdRecMap& m, const uint8_t* s, int64_t len) {
+    std::string key(reinterpret_cast<const char*>(s), (size_t)len);
+    auto it = m.idx.find(key);
+    if (it != m.idx.end()) return it->second;
+    int64_t id = (int64_t)m.order.size();
+    m.idx.emplace(key, id);
+    m.order.emplace_back(std::move(key), 0);
+    return id;
+}
+
+inline void adrec_log(AdRec* r, int64_t id1, int64_t id2, int64_t count) {
+    r->events.push_back(id1);
+    r->events.push_back(id2);
+    r->events.push_back(count);
+}
+
+// one pair add: a capped NEW adapter1 key skips adapter2 (the reference's
+// early return); an empty side skips only its own map
+inline void adrec_pair(AdRec* r, const uint8_t* s1, int64_t l1,
+                       const uint8_t* s2, int64_t l2, int64_t count) {
+    if (r->log) {
+        if (l1 > 0 || l2 > 0)
+            adrec_log(r, l1 > 0 ? adrec_intern(r->m1, s1, l1) : -1,
+                      l2 > 0 ? adrec_intern(r->m2, s2, l2) : -1, count);
+        return;
+    }
+    if (l1 > 0 && !adrec_add(r->m1, s1, l1, count)) return;
+    if (l2 > 0) adrec_add(r->m2, s2, l2, count);
+}
+
+inline void adrec_one(AdRec* r, const uint8_t* s, int64_t len, bool is_r2,
+                      int64_t count) {
+    if (len <= 0) return;
+    if (r->log) {
+        int64_t id = adrec_intern(is_r2 ? r->m2 : r->m1, s, len);
+        adrec_log(r, is_r2 ? -2 : id, is_r2 ? id : -2, count);
+        return;
+    }
+    adrec_add(is_r2 ? r->m2 : r->m1, s, len, count);
+}
+
 }  // namespace
 
 extern "C" {
 
 void* adrec_create() { return new AdRec(); }
+void* adrec_create_log() {
+    AdRec* r = new AdRec();
+    r->log = true;
+    return r;
+}
 void adrec_free(void* h) { delete static_cast<AdRec*>(h); }
 
 // single-key add (reference: src/filterresult.cpp:124-153 map part only;
 // the trimmed reads/bases counters stay in Python, vectorized)
 void adrec_add_one(void* h, const uint8_t* s, int64_t len, int32_t is_r2,
                    int64_t count) {
-    if (len <= 0) return;
-    AdRec* r = static_cast<AdRec*>(h);
-    adrec_add(is_r2 ? r->m2 : r->m1, s, len, count);
+    adrec_one(static_cast<AdRec*>(h), s, len, is_r2 != 0, count);
 }
 
 // bulk PE overlap-trim path (reference: src/filterresult.cpp:155-183):
@@ -844,13 +896,9 @@ void adrec_add_pairs(void* h, const uint8_t* ba1, int64_t W1,
     for (int64_t k = 0; k < n; k++) {
         int64_t row = rows[k];
         int64_t a1 = lo1[k], b1 = hi1[k];
-        int64_t L1 = b1 > a1 ? b1 - a1 : 0;
-        if (L1 > 0) {
-            if (!adrec_add(r->m1, ba1 + row * W1 + a1, L1, 1)) continue;
-        }
         int64_t a2 = lo2[k], b2 = hi2[k];
-        int64_t L2 = b2 > a2 ? b2 - a2 : 0;
-        if (L2 > 0) adrec_add(r->m2, ba2 + row * W2 + a2, L2, 1);
+        adrec_pair(r, ba1 + row * W1 + a1, b1 > a1 ? b1 - a1 : 0,
+                   ba2 + row * W2 + a2, b2 > a2 ? b2 - a2 : 0, 1);
     }
 }
 
@@ -861,11 +909,9 @@ void adrec_add_rows(void* h, const uint8_t* ba, int64_t W,
                     const int64_t* rows, const int64_t* lo,
                     const int64_t* hi, int64_t n, int32_t is_r2) {
     AdRec* r = static_cast<AdRec*>(h);
-    AdRecMap& m = is_r2 ? r->m2 : r->m1;
     for (int64_t k = 0; k < n; k++) {
         int64_t a = lo[k], b = hi[k];
-        int64_t L = b > a ? b - a : 0;
-        if (L > 0) adrec_add(m, ba + rows[k] * W + a, L, 1);
+        adrec_one(r, ba + rows[k] * W + a, b > a ? b - a : 0, is_r2 != 0, 1);
     }
 }
 
@@ -874,11 +920,7 @@ void adrec_add_rows(void* h, const uint8_t* ba, int64_t W,
 // add_adapter_trimmed_pair exactly (reference: src/filterresult.cpp:155-183)
 void adrec_add_pair_strs(void* h, const uint8_t* s1, int64_t l1,
                          const uint8_t* s2, int64_t l2, int64_t count) {
-    AdRec* r = static_cast<AdRec*>(h);
-    if (l1 > 0) {
-        if (!adrec_add(r->m1, s1, l1, count)) return;
-    }
-    if (l2 > 0) adrec_add(r->m2, s2, l2, count);
+    adrec_pair(static_cast<AdRec*>(h), s1, l1, s2, l2, count);
 }
 
 // export protocol: size query, then fill caller buffers.  Entries stream
@@ -905,6 +947,41 @@ void adrec_export(void* h, int32_t is_r2, uint8_t* keys_concat,
         key_lens[i] = (int64_t)k.size();
         counts[i] = m.order[i].second;
         off += (int64_t)k.size();
+    }
+}
+
+// log-mode export: the (id1, id2, count) triples, 3 * adrec_log_size
+// int64s; the interned keys come through adrec_export (counts 0)
+int64_t adrec_log_size(void* h) {
+    return (int64_t)static_cast<AdRec*>(h)->events.size() / 3;
+}
+
+void adrec_log_export(void* h, int64_t* out) {
+    AdRec* r = static_cast<AdRec*>(h);
+    memcpy(out, r->events.data(), r->events.size() * sizeof(int64_t));
+}
+
+// replay one shard's log (its interned keys per side + events) into a
+// capped recorder, in order
+void adrec_replay(void* h, const uint8_t* keys1, const int64_t* lens1,
+                  int64_t n1, const uint8_t* keys2, const int64_t* lens2,
+                  int64_t n2, const int64_t* events, int64_t n_events) {
+    AdRec* r = static_cast<AdRec*>(h);
+    std::vector<const uint8_t*> p1((size_t)n1), p2((size_t)n2);
+    for (int64_t i = 0, off = 0; i < n1; off += lens1[i++]) p1[i] = keys1 + off;
+    for (int64_t i = 0, off = 0; i < n2; off += lens2[i++]) p2[i] = keys2 + off;
+    for (int64_t e = 0; e < n_events; e++) {
+        int64_t id1 = events[3 * e], id2 = events[3 * e + 1];
+        int64_t count = events[3 * e + 2];
+        if (id2 == -2)
+            adrec_one(r, p1[id1], lens1[id1], false, count);
+        else if (id1 == -2)
+            adrec_one(r, p2[id2], lens2[id2], true, count);
+        else
+            adrec_pair(r, id1 >= 0 ? p1[id1] : nullptr,
+                       id1 >= 0 ? lens1[id1] : 0,
+                       id2 >= 0 ? p2[id2] : nullptr,
+                       id2 >= 0 ? lens2[id2] : 0, count);
     }
 }
 

@@ -48,8 +48,8 @@ def _shift_right(arr, k: int):
 def roll_front(arr, front):
     """Shift each row left by `front[b]`, filling with 0 (erase(0, front)).
 
-    TPU-native: per-row variable shifts decomposed into log2(L) static
-    lane shifts selected by the shift's bits -- no per-lane gathers.
+    Per-row variable shifts decomposed into log2(L) static shifts
+    selected by the shift's bits -- no per-element gathers.
     """
     B, L = arr.shape
     f = jnp.clip(front.astype(jnp.int32), 0, L)

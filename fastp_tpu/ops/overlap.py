@@ -25,6 +25,13 @@ from .common import pos_iota, rc
 
 COMPLETE_COMPARE_REQUIRE = 50
 
+# Ungapped sweep per platform (jax.default_backend()): "cond" = one-hot
+# conv on clean-alphabet batches, offset loop on dirty ones; "loop" = the
+# offset loop for every batch.  On an H100 the loop sweeps a 64k x 160
+# batch about 4x faster than the conv and needs no clean/dirty branch
+# (PERF.md, "Bring-up findings"); XLA's CPU backend runs the conv faster.
+SWEEP_BY_PLATFORM = {"cpu": "cond", "gpu": "loop"}
+
 
 def _onehot_acgtn(seq, length, dtype):
     """[B, L] bytes -> [B, 5, L] one-hot over A/C/G/T/N, zero beyond
@@ -40,18 +47,23 @@ def _xcorr(lhs, rhs, pad_right: int):
     """out[b, t] = sum_{c,i} lhs[b, c, i+t] * rhs[b, c, i] for t=0..W-1.
 
     One grouped conv: each batch row is its own filter group, so the whole
-    offset sweep runs as a single MXU pass instead of n_off serialized
+    offset sweep runs as one convolution instead of n_off serialized
     compare+reduce kernels."""
     B, C, L = lhs.shape
     lhsp = jnp.pad(lhs, ((0, 0), (0, 0), (0, pad_right)))
     # feature-grouped conv: one group of C channels per batch row (XLA
-    # lowers this as depthwise; batch_group_count materializes all pairs)
+    # lowers this as depthwise; batch_group_count materializes all pairs).
+    # f32 operands (L > 256) must not run in TF32 on a GPU: HIGHEST keeps
+    # every partial sum an exact integer.
+    prec = (jax.lax.Precision.HIGHEST if lhs.dtype == jnp.float32
+            else None)
     out = jax.lax.conv_general_dilated(
         lhsp.reshape(1, B * C, L + pad_right), rhs,
         window_strides=(1,),
         padding="VALID",
         dimension_numbers=("NCH", "OIH", "NCH"),
         feature_group_count=B,
+        precision=prec,
         preferred_element_type=jnp.float32)
     return out[0]  # [B, W]
 
@@ -144,16 +156,16 @@ def analyze(seq1, len1, seq2, len2, diff_limit: int, overlap_require: int,
     Returns dict(overlapped bool[B], offset int32[B], overlap_len int32[B],
                  diff int32[B], has_gap bool[B]).
 
-    `clean` (traced bool scalar or None): when given and True at runtime,
-    the MXU cross-correlation path is used (exact for ACGTN-only batches);
-    dirty batches fall back to the byte-exact offset loop via lax.cond.
+    `clean` (traced bool scalar or None): on a platform whose sweep is
+    "cond" (SWEEP_BY_PLATFORM), batches with clean=True at runtime take the
+    one-hot cross-correlation (exact for ACGTN-only batches) and dirty ones
+    the byte-exact offset loop, via lax.cond.
 
     `spmd`: the step is being partitioned over a device mesh.  The grouped
     conv puts the batch in the CHANNEL dimension, which GSPMD cannot shard
     on dp — it all-gathers the one-hot tensors (f32[1, B*5, n_off], tens of
-    MB) and re-runs the FULL conv on every device (measured ~100x wall on an
-    8-device mesh); a pallas_call is an opaque custom call with the same
-    replicate-everything fate.  The sequential-offset loop is row-local
+    MB) and re-runs the FULL conv on every device (measured ~100x wall on
+    an 8-device virtual CPU mesh).  The sequential-offset loop is row-local
     (dynamic_slice on axis 1 + masked reduces), so each shard sweeps only
     its own rows — it partitions perfectly and stays byte-exact for any
     alphabet, so the clean/dirty cond disappears too.
@@ -161,22 +173,8 @@ def analyze(seq1, len1, seq2, len2, diff_limit: int, overlap_require: int,
     if spmd and not allow_gap:
         return _analyze_loop(seq1, len1, seq2, len2, diff_limit,
                              overlap_require, diff_pct, False)
-    if clean is not None and not allow_gap:
-        import os
-        env = os.environ.get("FASTP_TPU_PALLAS_OVERLAP")
-        if env is None:
-            # default: Pallas on real accelerators (smaller executable, no
-            # clean/dirty cond, steadier load times); conv on CPU where the
-            # Mosaic kernel would have to run interpreted
-            use_pallas = jax.default_backend() != "cpu"
-        else:
-            use_pallas = env not in ("", "0")
-        if use_pallas:
-            # the Pallas sweep compares raw bytes: exact for ANY alphabet,
-            # so no clean/dirty branching is needed
-            from .overlap_pallas import analyze_pallas
-            return analyze_pallas(seq1, len1, seq2, len2, diff_limit,
-                                  overlap_require, diff_pct)
+    if (clean is not None and not allow_gap
+            and SWEEP_BY_PLATFORM.get(jax.default_backend()) == "cond"):
         return jax.lax.cond(
             clean,
             lambda ops: analyze_conv(*ops, diff_limit, overlap_require, diff_pct),

@@ -5,11 +5,11 @@ accumulators Stats::statRead builds per read:
   cycle_q20/q30/content/qual[8, L], cycle_total_base/qual[L],
   qual_hist[128], kmer[2048], reads, length_sum.
 
-TPU-native formulation: per-cycle tensors are masked reductions over the
-batch (sublane) axis; the quality histogram is a fori_loop of equality
-reductions; the joint 10-bit k-mer histogram is an MXU matmul of two
-one-hot factors (high 6 bits x low 4 bits) with f32 accumulation -- counts
-stay below 2^24 per batch so the matmul is exact.  No scatters anywhere.
+Formulation: per-cycle tensors are masked reductions over the batch axis;
+the quality histogram is a one-hot equality reduction; the joint 10-bit
+k-mer histogram is a matmul of two bf16 one-hot factors (high 6 bits x low
+4 bits) with f32 accumulation -- 0/1 operands are exact in bf16 and counts
+stay below 2^24 per batch, so the matmul is exact.  No scatters anywhere.
 """
 from __future__ import annotations
 
@@ -81,7 +81,7 @@ def stat_batch(bases, quals, lengths, include):
     lo = (kmer & 0xF).astype(jnp.int32)       # 4 bits, 0..15
     # joint [64, 16] histogram = contraction of the two one-hot factors over
     # the position axis, batched over reads, then reduced over the batch.
-    # Exact: per-bin counts < 2^24, f32 accumulation on the MXU.
+    # Exact: per-bin counts < 2^24, f32 accumulation.
     oh_hi = ((hi[:, :, None] == jnp.arange(64)[None, None, :])
              & valid[:, :, None]).astype(jnp.bfloat16)
     oh_lo = (lo[:, :, None] == jnp.arange(16)[None, None, :]).astype(jnp.bfloat16)

@@ -1,11 +1,11 @@
 """Data-parallel execution over a jax.sharding.Mesh.
 
 The reference scales with worker threads over read packs
-(reference: src/peprocessor.cpp:750-754); the TPU-native equivalent is
+(reference: src/peprocessor.cpp:750-754); the equivalent here is
 read-batch sharding over a 1-D 'dp' device mesh.  Batch tensors are sharded
 on the batch axis, per-read outputs come back sharded, and batch-reduced
-stat tensors are summed across shards by XLA-inserted collectives (psum over
-ICI) via replicated output shardings.
+stat tensors are summed across shards by XLA-inserted collectives (NCCL
+over NVLink on a GPU host) via replicated output shardings.
 """
 from __future__ import annotations
 
@@ -22,11 +22,17 @@ _dist_initialized = False
 def init_distributed():
     """Multi-host initialization (call once per process before device use).
 
-    The reference scales with threads in one process; the TPU-native
-    equivalent is one process per host with jax.distributed handling the
-    coordination plane.  Controlled by standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) or the
-    TPU metadata environment; a no-op for single-host runs.
+    The reference scales with threads in one process; the equivalent here
+    is one process per host with jax.distributed handling the coordination
+    plane, controlled by JAX_COORDINATOR_ADDRESS (host:port of process 0),
+    JAX_NUM_PROCESSES and JAX_PROCESS_ID, all three given explicitly: no
+    cluster environment is probed.  A no-op when JAX_COORDINATOR_ADDRESS
+    is unset.
+
+    Several processes on one GPU host must not share a card: a JAX process
+    reserves most of the memory of every card it sees.  Start process k
+    with CUDA_VISIBLE_DEVICES=k (as --local_processes does for its
+    children, parallel/cards.py), so each process drives exactly one card.
     """
     import os
     global _dist_initialized

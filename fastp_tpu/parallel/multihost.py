@@ -1,7 +1,7 @@
 """Multi-host (multi-process) scale-out.
 
 The reference scales with worker threads inside one process
-(src/peprocessor.cpp:750-754); the TPU-native equivalent is one process per
+(src/peprocessor.cpp:750-754); the equivalent here is one process per
 host, coordinated by jax.distributed (parallel/mesh.py:init_distributed).
 This module implements single-input-file sharding across those processes:
 
@@ -161,25 +161,33 @@ def _offset_after_lines(path: str, line_targets: List[int]) -> List[int]:
     return out
 
 
-def shard_ranges(path1: str, path2: Optional[str], n: int):
-    """((start1, end1) per shard, (start2, end2) per shard or None)."""
+def align_records(bounds: List[int], align: int) -> List[int]:
+    """Shard boundaries (record indices) rounded to multiples of `align`,
+    the batch size: every shard then reads exactly the batches one process
+    would, so per-batch, order-dependent work (the adapter maps' caps)
+    replays identically across shards.  Tiny inputs can put several
+    boundaries on the same record; earlier shards then get empty ranges."""
+    out = [int(round(b / align)) * align for b in bounds]
+    for k in range(1, len(out)):
+        out[k] = max(out[k], out[k - 1])
+    return out
+
+
+def shard_ranges(path1: str, path2: Optional[str], n: int, align: int = 1):
+    """((start1, end1) per shard, (start2, end2) per shard or None), cut
+    at record indices that are multiples of `align`."""
     size1 = os.path.getsize(path1)
-    bounds1 = [_align_to_record(path1, size1 * k // n) for k in range(n)]
-    bounds1.append(size1)
-    # enforce monotonicity (tiny files can align several shards to the same
-    # record; later shards then get empty ranges)
-    for k in range(1, n + 1):
-        bounds1[k] = max(bounds1[k], bounds1[k - 1])
-    ranges1 = [(bounds1[k], bounds1[k + 1]) for k in range(n)]
-    if not path2:
-        return ranges1, None
-    recs = [c // 4 for c in _newlines_before(path1, bounds1[1:n])]
-    bounds2 = [0] + _offset_after_lines(path2, [4 * r for r in recs])
-    bounds2.append(os.path.getsize(path2))
-    for k in range(1, n + 1):
-        bounds2[k] = max(bounds2[k], bounds2[k - 1])
-    ranges2 = [(bounds2[k], bounds2[k + 1]) for k in range(n)]
-    return ranges1, ranges2
+    starts = [_align_to_record(path1, size1 * k // n) for k in range(1, n)]
+    recs = align_records([c // 4 for c in _newlines_before(path1, starts)],
+                         align)
+
+    def ranges(path):
+        bounds = [0] + _offset_after_lines(path, [4 * r for r in recs])
+        bounds.append(os.path.getsize(path))
+        for k in range(1, n + 1):
+            bounds[k] = max(bounds[k], bounds[k - 1])
+        return [(bounds[k], bounds[k + 1]) for k in range(n)]
+    return ranges(path1), (ranges(path2) if path2 else None)
 
 
 def shard_filename(path: str, index: int, digits: int = 4) -> str:
@@ -218,27 +226,23 @@ def shard_options(opt) -> None:
         n_rec = count_records(opt.in1)
         if opt.interleavedInput:
             pairs = n_rec // 2
-            bounds = [2 * (pairs * i // n) for i in range(n)]
+            bounds = [2 * b for b in align_records(
+                [pairs * i // n for i in range(n)], opt.batchSize)]
         else:
-            bounds = [n_rec * i // n for i in range(n)]
+            bounds = align_records([n_rec * i // n for i in range(n)],
+                                   opt.batchSize)
         bounds.append(None)  # last shard reads to EOF
         opt.shardRecRange = (bounds[k], bounds[k + 1])
         opt.shardRange1 = None
         opt.shardRange2 = None
     elif opt.interleavedInput:
-        r1, _ = shard_ranges(opt.in1, None, n)
-        # align interleaved boundaries to an even record index
-        # (pairs must not straddle shards)
-        recs = [c // 4 for c in _newlines_before(opt.in1, [b for b, _ in r1])]
-        evens = [4 * (r + (r & 1)) for r in recs]
-        bounds = _offset_after_lines(opt.in1, evens)
-        bounds.append(os.path.getsize(opt.in1))
-        for i in range(1, n + 1):
-            bounds[i] = max(bounds[i], bounds[i - 1])
-        opt.shardRange1 = (bounds[k], bounds[k + 1])
+        # a batch is batchSize PAIRS = 2 * batchSize records, so this also
+        # keeps pairs from straddling shards
+        r1, _ = shard_ranges(opt.in1, None, n, 2 * opt.batchSize)
+        opt.shardRange1 = r1[k]
         opt.shardRange2 = None
     else:
-        r1, r2 = shard_ranges(opt.in1, opt.in2 or None, n)
+        r1, r2 = shard_ranges(opt.in1, opt.in2 or None, n, opt.batchSize)
         opt.shardRange1 = r1[k]
         opt.shardRange2 = r2[k] if r2 else None
     for attr in ("out1", "out2", "unpaired1", "unpaired2", "failedOut",
@@ -451,6 +455,8 @@ def merge_processor_stats(proc, is_pe: bool) -> bool:
     states = allgather_state(state, exchange_dir)
     if process_index() != 0:
         return False
+    proc.filter_result.replay_adapter_logs(
+        [st["filter"]["adapter_log"] for st in states])
     me = process_index()
     for i, st in enumerate(states):
         if i == me:

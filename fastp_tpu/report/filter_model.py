@@ -19,6 +19,20 @@ def _is_low_complexity(adapter: str) -> bool:
     return diff < len(adapter) // 2
 
 
+def _map_add(m: dict, adapter: str, count: int) -> bool:
+    """One capped map add (reference: src/filterresult.cpp:124-183): a NEW
+    key is dropped past MAX_ADAPTER_REC entries, or past
+    LOW_COMPLEXITY_SKIP when low-complexity; False when dropped."""
+    if adapter in m:
+        m[adapter] += count
+        return True
+    if len(m) > MAX_ADAPTER_REC or (len(m) > LOW_COMPLEXITY_SKIP
+                                    and _is_low_complexity(adapter)):
+        return False
+    m[adapter] = count
+    return True
+
+
 class FilterResult:
     def __init__(self, opt: Options, paired: bool):
         self.opt = opt
@@ -31,13 +45,20 @@ class FilterResult:
         self._adapter2 = {}
         # native recorder (fastq_native.cpp adrec_*): keeps the adapter
         # count maps in C++ so per-row PE read-through recording costs no
-        # Python (~30s per 2M pairs measured in the dict path); exported
-        # to plain dicts on first read (reports/state_dict).
+        # Python; exported to plain dicts on first read (reports).
+        # One shard of a multi-process run records an event log instead:
+        # the maps' caps depend on input order across shards, so they are
+        # rebuilt at merge (replay_adapter_logs), exactly as one process
+        # reading the whole input would have built them.
+        from ..parallel import multihost
+        self._log = multihost.active()
+        self._events = [] if self._log else None  # pure-Python path's log
         self._adrec = None
         try:
             from ..io import native as _native_mod
             if _native_mod.get_lib() is not None:
-                self._adrec = _native_mod.AdapterRecorder()
+                self._adrec = _native_mod.AdapterRecorder(log=self._log)
+                self._events = None
         except Exception:
             self._adrec = None
         self.correction_matrix = np.zeros(64, np.int64)
@@ -74,15 +95,12 @@ class FilterResult:
         self.trimmed_adapter_bases += len(adapter) * count
         if self._adrec is not None:
             self._adrec.add_one(adapter.encode("latin-1"), is_r2, count)
-            return
-        m = self._adapter2 if is_r2 else self._adapter1
-        if adapter in m:
-            m[adapter] += count
+        elif self._events is not None:
+            self._events.append((None, adapter, count) if is_r2
+                                else (adapter, None, count))
         else:
-            if len(m) > MAX_ADAPTER_REC or (len(m) > LOW_COMPLEXITY_SKIP
-                                            and _is_low_complexity(adapter)):
-                return
-            m[adapter] = count
+            _map_add(self._adapter2 if is_r2 else self._adapter1, adapter,
+                     count)
 
     def add_adapter_trimmed_pair(self, adapter1: str, adapter2: str,
                                  count: int = 1):
@@ -93,23 +111,16 @@ class FilterResult:
         if self._adrec is not None:
             self._adrec.add_pair_strs(adapter1.encode("latin-1"),
                                       adapter2.encode("latin-1"), count)
+        elif self._events is not None:
+            self._events.append((adapter1, adapter2, count, "pair"))
+        else:
+            self._pair_add(adapter1, adapter2, count)
+
+    def _pair_add(self, adapter1: str, adapter2: str, count: int):
+        if adapter1 and not _map_add(self._adapter1, adapter1, count):
             return
-        if adapter1:
-            if adapter1 in self._adapter1:
-                self._adapter1[adapter1] += count
-            else:
-                if len(self._adapter1) > MAX_ADAPTER_REC or (
-                        len(self._adapter1) > LOW_COMPLEXITY_SKIP and _is_low_complexity(adapter1)):
-                    return
-                self._adapter1[adapter1] = count
         if adapter2:
-            if adapter2 in self._adapter2:
-                self._adapter2[adapter2] += count
-            else:
-                if len(self._adapter2) > MAX_ADAPTER_REC or (
-                        len(self._adapter2) > LOW_COMPLEXITY_SKIP and _is_low_complexity(adapter2)):
-                    return
-                self._adapter2[adapter2] = count
+            _map_add(self._adapter2, adapter2, count)
 
     def add_adapter_trimmed_pairs_bulk(self, ba1, lo1, hi1, ba2, lo2, hi2,
                                        rows):
@@ -159,24 +170,39 @@ class FilterResult:
             return self._adrec.export(True)
         return self._adapter2
 
-    def _materialize(self):
-        """Switch to plain-dict mode (used before cross-host merging,
-        which mutates the dicts without cap semantics, like the
-        reference's FilterResult::merge)."""
+    def replay_adapter_logs(self, logs):
+        """Rebuild the adapter maps from every shard's log, in shard order:
+        the maps one process reading the whole input would hold."""
         if self._adrec is not None:
-            self._adapter1 = self._adrec.export(False)
-            self._adapter2 = self._adrec.export(True)
-            self._adrec = None
+            from ..io import native as _native_mod
+            self._adrec = _native_mod.AdapterRecorder()
+            for log in logs:
+                self._adrec.replay(log)
+            return
+        self._events = None
+        self._adapter1, self._adapter2 = {}, {}
+        for log in logs:
+            for ev in log:
+                if len(ev) == 4:
+                    self._pair_add(*ev[:3])
+                elif ev[0] is None:
+                    _map_add(self._adapter2, ev[1], ev[2])
+                else:
+                    _map_add(self._adapter1, ev[0], ev[2])
 
     # -- cross-host merge (reference: FilterResult::merge,
-    #    src/filterresult.cpp:38-89) ----------------------------------------
+    #    src/filterresult.cpp:38-89, whose per-thread merge of capped maps
+    #    is order-dependent; here the maps match a one-process run) -----
     def state_dict(self) -> dict:
+        """This shard's accumulators (log mode: the adapter event log in
+        place of the maps)."""
         return {
             "filter_read_stats": self.filter_read_stats,
             "trimmed_adapter_reads": self.trimmed_adapter_reads,
             "trimmed_adapter_bases": self.trimmed_adapter_bases,
             "merged_pairs": self.merged_pairs,
-            "adapter1": self.adapter1, "adapter2": self.adapter2,
+            "adapter_log": (self._adrec.log_state()
+                            if self._adrec is not None else self._events),
             "correction_matrix": self.correction_matrix,
             "corrected_reads": self.corrected_reads,
             "polyx_trimmed_reads": self.polyx_trimmed_reads,
@@ -184,14 +210,12 @@ class FilterResult:
         }
 
     def merge_state(self, st: dict):
-        self._materialize()
+        """Add another shard's counters (the adapter maps are rebuilt
+        separately, by replay_adapter_logs)."""
         self.filter_read_stats += st["filter_read_stats"]
         self.trimmed_adapter_reads += st["trimmed_adapter_reads"]
         self.trimmed_adapter_bases += st["trimmed_adapter_bases"]
         self.merged_pairs += st["merged_pairs"]
-        for key, m in (("adapter1", self._adapter1), ("adapter2", self._adapter2)):
-            for k, v in st[key].items():
-                m[k] = m.get(k, 0) + v
         self.correction_matrix += st["correction_matrix"]
         self.corrected_reads += st["corrected_reads"]
         self.polyx_trimmed_reads += st["polyx_trimmed_reads"]

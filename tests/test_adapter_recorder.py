@@ -22,6 +22,7 @@ def _mk_pair(with_native: bool) -> FilterResult:
     fr = FilterResult(Options(), paired=True)
     if not with_native:
         fr._adrec = None
+        fr._events = [] if fr._log else None
     return fr
 
 
@@ -91,7 +92,7 @@ def test_caps_and_low_complexity(monkeypatch):
     assert len(py.adapter1) > filter_model.MAX_ADAPTER_REC - 1
 
 
-def test_single_adds_and_state_dict_roundtrip():
+def test_single_adds_and_state_dict_roundtrip(monkeypatch):
     nat = _mk_pair(True)
     py = _mk_pair(False)
     seqs = ["ACGT", "ACGT", "A", "AAAAAA", "TTTTGGGGCCC", ""]
@@ -106,10 +107,55 @@ def test_single_adds_and_state_dict_roundtrip():
     assert nat.adapter2 == py.adapter2
     assert nat.trimmed_adapter_reads == py.trimmed_adapter_reads
     assert nat.trimmed_adapter_bases == py.trimmed_adapter_bases
-    st = nat.state_dict()
-    assert st["adapter1"] == py.adapter1
-    # merge materializes and keeps accumulating correctly
-    other = _mk_pair(True)
-    other.add_adapter_trimmed("ACGT")
-    other.merge_state(st)
-    assert other.adapter1["ACGT"] == py.adapter1["ACGT"] + 1
+    # the same adds split over two shards: their logs, replayed in shard
+    # order, rebuild the maps; merge_state adds the counters
+    monkeypatch.setenv("FASTP_TPU_SHARD_COUNT", "2")
+    shards = [_mk_pair(True), _mk_pair(True)]
+    for i, s in enumerate(seqs):
+        sh = shards[i * 2 // len(seqs)]
+        sh.add_adapter_trimmed(s, is_r2=False)
+        sh.add_adapter_trimmed(s, is_r2=True, inc_trimmed_counter=False,
+                               count=3)
+    sts = [sh.state_dict() for sh in shards]
+    merged = shards[0]
+    merged.replay_adapter_logs([st["adapter_log"] for st in sts])
+    merged.merge_state(sts[1])
+    assert merged.adapter1 == py.adapter1
+    assert merged.adapter2 == py.adapter2
+    assert merged.trimmed_adapter_reads == py.trimmed_adapter_reads
+    assert merged.trimmed_adapter_bases == py.trimmed_adapter_bases
+
+
+@pytest.mark.parametrize("with_native", [True, False],
+                         ids=["native", "python"])
+def test_shard_logs_replay_to_one_process_maps(with_native, monkeypatch):
+    """Past the caps, the maps depend on the order of adds across shards
+    (and adapter2 on whether a NEW adapter1 was dropped): three shards'
+    logs replayed in order equal one FilterResult fed every add."""
+    rng = np.random.default_rng(11)
+    n = 2 * filter_model.MAX_ADAPTER_REC + 3000
+    keys = rng.integers(65, 69, size=(n, 12), dtype=np.uint8)
+    keys[::7] = keys[1::7][:len(keys[::7])]  # repeats across shards
+    adds = [(keys[k].tobytes().decode("latin-1"),
+             keys[(k * 5) % n].tobytes().decode("latin-1")[:1 + k % 11])
+            for k in range(n)]
+    one = _mk_pair(with_native)
+    for a1, a2 in adds:
+        if len(a2) % 3:
+            one.add_adapter_trimmed_pair(a1, a2)
+        else:
+            one.add_adapter_trimmed(a2, is_r2=True)
+    monkeypatch.setenv("FASTP_TPU_SHARD_COUNT", "3")
+    shards = [_mk_pair(with_native) for _ in range(3)]
+    for k, (a1, a2) in enumerate(adds):
+        sh = shards[k * 3 // n]
+        if len(a2) % 3:
+            sh.add_adapter_trimmed_pair(a1, a2)
+        else:
+            sh.add_adapter_trimmed(a2, is_r2=True)
+    merged = shards[0]
+    merged.replay_adapter_logs([sh.state_dict()["adapter_log"]
+                                for sh in shards])
+    assert len(one.adapter1) > filter_model.MAX_ADAPTER_REC
+    assert merged.adapter1 == one.adapter1
+    assert merged.adapter2 == one.adapter2

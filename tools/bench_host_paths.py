@@ -1,8 +1,8 @@
 """Micro-benchmarks for the native host hot paths (no device involved).
 
 Measures tokenize / dup hash / nib pack / serialize on a synthetic PE150
-batch — the single host core feeds the TPU, so these set the produce-side
-throughput ceiling.  Run on an idle host:
+batch — the host stages that feed the device, so these bound the
+produce-side throughput.  Run on an idle host:
 
     python tools/bench_host_paths.py [--batch 32768] [--width 160]
 """

@@ -1,6 +1,6 @@
 """Fast multi-member gzip of a file via fastp_tpu's native libdeflate
-compressor (one member per 8MB chunk) — ~6x faster than the gzip CLI on
-this 1-core host.  Used by bench.py to build the gzipped-input corpus
+compressor (one member per 8MB chunk), faster than the gzip CLI.  Used
+by bench.py to build the gzipped-input corpus
 inside the bench budget; falls back to the zlib module without the
 native library."""
 import sys

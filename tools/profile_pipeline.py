@@ -19,7 +19,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--pairs", type=int, default=50000)
     ap.add_argument("--batch", type=int, default=16384)
-    ap.add_argument("--corpus", default="/tmp/fastp_bench")
+    ap.add_argument("--corpus", default=os.path.join(ROOT, ".bench", "profile"))
     args = ap.parse_args()
 
     r1 = os.path.join(args.corpus, "R1.fq")
