@@ -29,8 +29,12 @@ nvidia-smi must show every card busy during each four-card run.
 
 Only one JAX process uses a card at a time: this script itself never starts
 JAX; each phase that needs the card is one child process that exits before
-the next starts.  The last line of standard output is one JSON object,
-{"ok": true, "device": {...}}, printed only when every phase passed.
+the next starts.  Every child meant for the card runs with
+JAX_PLATFORMS=cuda, so a card that fails to start ends the run instead of
+leaving JAX on the CPU; the server also names its backend on its READY
+line, and anything but gpu fails the run.  The last line of standard output
+is one JSON object, {"ok": true, "device": {...}}, printed only when every
+phase passed.
 """
 import argparse
 import hashlib
@@ -46,7 +50,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, ".chip_smoke")
-SOCK = os.path.join(WORK, "serve.sock")
 TESTDATA = os.path.join(ROOT, "tests", "testdata")
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 A1 = "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
@@ -100,12 +103,13 @@ def log(msg):
     print(msg, flush=True)
 
 
-def env_for(platform=None, **extra):
+def env_for(platform="cuda", **extra):
+    """A child's environment: JAX held to `platform` (the card unless
+    told otherwise), this checkout first on the import path."""
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     env.pop("FASTP_TPU_SERVER", None)
-    if platform:
-        env["JAX_PLATFORMS"] = platform
+    env["JAX_PLATFORMS"] = platform
     env.update(extra)
     return env
 
@@ -283,9 +287,9 @@ def child_device():
 
 # -- phases run here -----------------------------------------------------
 
-def phase_child(name, timeout, platform=None):
+def phase_child(name, timeout):
     cmd = [sys.executable, os.path.abspath(__file__), "--child", name]
-    rc, out, err = run(cmd, timeout, env=env_for(platform), cwd=ROOT)
+    rc, out, err = run(cmd, timeout, env=env_for(), cwd=ROOT)
     lines = out.strip().splitlines()
     for ln in lines[:-1]:
         log("  " + ln)
@@ -315,20 +319,24 @@ def phase_gpu_tests():
 
 
 class Server:
-    """One `fastp_tpu serve` on the card; jobs go through the thin client."""
+    """One `fastp_tpu serve` whose READY line must name the backend
+    `expect`; jobs go through the thin client."""
 
-    def __init__(self, timing=True):
+    def __init__(self, workdir=WORK, platform="cuda", expect="gpu"):
+        self.sock = os.path.join(workdir, "serve.sock")
+        self.platform = platform
         try:
-            os.unlink(SOCK)
+            os.unlink(self.sock)
         except OSError:
             pass
-        self.err_path = os.path.join(WORK, "serve.err")
+        self.err_path = os.path.join(workdir, "serve.err")
         self.err = open(self.err_path, "w")
-        env = env_for(None, FASTP_TPU_TIMING="1") if timing else env_for()
         t0 = time.perf_counter()
         self.proc = start([sys.executable, "-m", "fastp_tpu", "serve",
-                           "--socket", SOCK], env=env, cwd=WORK,
-                          stdout=subprocess.PIPE, stderr=self.err, text=True)
+                           "--socket", self.sock],
+                          env=env_for(platform, FASTP_TPU_TIMING="1"),
+                          cwd=workdir, stdout=subprocess.PIPE,
+                          stderr=self.err, text=True)
         while True:
             line = self.proc.stdout.readline()
             if line.startswith("READY"):
@@ -336,25 +344,36 @@ class Server:
             if not line:
                 raise PhaseError("server died before READY:\n"
                                  + open(self.err_path).read()[-4000:])
-        log("server READY after %.1fs" % (time.perf_counter() - t0))
+        backend = line.split()[-1]
+        if backend != expect:
+            self.proc.kill()
+            self.proc.wait()
+            self.err.close()
+            raise PhaseError("server runs on %s, not %s: %s"
+                             % (backend, expect, line.strip()))
+        log("server READY on %s after %.1fs"
+            % (backend, time.perf_counter() - t0))
 
     def job(self, args, cwd, timeout=900):
         os.makedirs(cwd, exist_ok=True)
         t0 = time.perf_counter()
         rc, out, err = run([sys.executable, "-m", "fastp_tpu"] + args,
                            timeout, cwd=cwd,
-                           env=env_for(None, FASTP_TPU_SERVER=SOCK))
+                           env=env_for(self.platform,
+                                       FASTP_TPU_SERVER=self.sock))
         wall = time.perf_counter() - t0
         if rc != 0:
             raise PhaseError("job %s exited with %d:\n%s" % (
                 " ".join(args), rc, err[-4000:]))
+        if self.proc.poll() is not None:  # the client ran the job itself
+            raise PhaseError("server exited during job %s" % " ".join(args))
         return wall, err
 
     def close(self):
         from_client = subprocess.run(
             [sys.executable, "-c", "from fastp_tpu.client import "
-             "shutdown_server; shutdown_server(%r)" % SOCK],
-            env=env_for(), cwd=ROOT, timeout=60)
+             "shutdown_server; shutdown_server(%r)" % self.sock],
+            env=env_for("cpu"), cwd=ROOT, timeout=60)
         try:
             self.proc.wait(timeout=60)
         except subprocess.TimeoutExpired:
@@ -519,7 +538,7 @@ def four_cards():
         d = os.path.join(WORK, name)
         shutil.rmtree(d, ignore_errors=True)
         os.makedirs(d)
-        env = env_for(None)
+        env = env_for()
         if name == "1card":
             env["CUDA_VISIBLE_DEVICES"] = "0"
         walls = []

@@ -782,15 +782,22 @@ struct AdRecMap {
 };
 
 // Log mode (one shard of a multi-process run): m1/m2 intern every distinct
-// key uncapped, in first-occurrence order, and `events` records each add as
-// (id1, id2, count); -1 = that side of a pair is empty, -2 = a one-sided
-// add to the other map.  Replaying every shard's events in shard order into
-// one capped recorder rebuilds exactly the maps of one process that read
-// the whole input (caps and the pair early return depend on order).
+// key uncapped, in first-occurrence order, and `events` holds one
+// (id1, id2, count) triple per distinct add kind, in order of its first
+// appearance, with the counts of its later adds summed in; -1 = that side
+// of a pair is empty, -2 = a one-sided add to the other map.  Summing is
+// exact: whether a map admits a key is decided at the key's first add and
+// never changes (the map only grows), so a later add of the same kind only
+// increments what its first add did.  Replaying every shard's events in
+// shard order into one capped recorder therefore rebuilds exactly the maps
+// of one process that read the whole input (the caps and the pair early
+// return depend on the order of first appearances).  The log grows with
+// the distinct adapter strings, not with the reads.
 struct AdRec {
     AdRecMap m1, m2;
     bool log = false;
     std::vector<int64_t> events;
+    std::unordered_map<uint64_t, int64_t> event_slot;  // (id1, id2) -> index
 };
 
 inline bool adrec_low_complexity(const uint8_t* s, int64_t len) {
@@ -832,6 +839,13 @@ inline int64_t adrec_intern(AdRecMap& m, const uint8_t* s, int64_t len) {
 }
 
 inline void adrec_log(AdRec* r, int64_t id1, int64_t id2, int64_t count) {
+    uint64_t kind = ((uint64_t)(id1 + 2) << 32) | (uint64_t)(id2 + 2);
+    auto it = r->event_slot.find(kind);
+    if (it != r->event_slot.end()) {
+        r->events[(size_t)it->second + 2] += count;
+        return;
+    }
+    r->event_slot.emplace(kind, (int64_t)r->events.size());
     r->events.push_back(id1);
     r->events.push_back(id2);
     r->events.push_back(count);

@@ -25,13 +25,6 @@ from .common import pos_iota, rc
 
 COMPLETE_COMPARE_REQUIRE = 50
 
-# Ungapped sweep per platform (jax.default_backend()): "cond" = one-hot
-# conv on clean-alphabet batches, offset loop on dirty ones; "loop" = the
-# offset loop for every batch.  On an H100 the loop sweeps a 64k x 160
-# batch about 4x faster than the conv and needs no clean/dirty branch
-# (PERF.md, "Bring-up findings"); XLA's CPU backend runs the conv faster.
-SWEEP_BY_PLATFORM = {"cpu": "cond", "gpu": "loop"}
-
 
 def _onehot_acgtn(seq, length, dtype):
     """[B, L] bytes -> [B, 5, L] one-hot over A/C/G/T/N, zero beyond
@@ -156,10 +149,13 @@ def analyze(seq1, len1, seq2, len2, diff_limit: int, overlap_require: int,
     Returns dict(overlapped bool[B], offset int32[B], overlap_len int32[B],
                  diff int32[B], has_gap bool[B]).
 
-    `clean` (traced bool scalar or None): on a platform whose sweep is
-    "cond" (SWEEP_BY_PLATFORM), batches with clean=True at runtime take the
-    one-hot cross-correlation (exact for ACGTN-only batches) and dirty ones
-    the byte-exact offset loop, via lax.cond.
+    `clean` (traced bool scalar or None): on the CPU, batches with
+    clean=True at runtime take the one-hot cross-correlation (exact for
+    ACGTN-only batches) and dirty ones the byte-exact offset loop, via
+    lax.cond.  Every other platform runs the offset loop for every batch:
+    on an H100 it sweeps a 64k x 160 batch about 4x faster than the conv
+    (PERF.md, "Bring-up findings"), while XLA's CPU backend runs the conv
+    faster.
 
     `spmd`: the step is being partitioned over a device mesh.  The grouped
     conv puts the batch in the CHANNEL dimension, which GSPMD cannot shard
@@ -174,7 +170,7 @@ def analyze(seq1, len1, seq2, len2, diff_limit: int, overlap_require: int,
         return _analyze_loop(seq1, len1, seq2, len2, diff_limit,
                              overlap_require, diff_pct, False)
     if (clean is not None and not allow_gap
-            and SWEEP_BY_PLATFORM.get(jax.default_backend()) == "cond"):
+            and jax.default_backend() == "cpu"):
         return jax.lax.cond(
             clean,
             lambda ops: analyze_conv(*ops, diff_limit, overlap_require, diff_pct),

@@ -165,8 +165,9 @@ def align_records(bounds: List[int], align: int) -> List[int]:
     """Shard boundaries (record indices) rounded to multiples of `align`,
     the batch size: every shard then reads exactly the batches one process
     would, so per-batch, order-dependent work (the adapter maps' caps)
-    replays identically across shards.  Tiny inputs can put several
-    boundaries on the same record; earlier shards then get empty ranges."""
+    replays identically across shards.  An input of fewer than N batches
+    puts several boundaries on the same record, and those shards get empty
+    ranges (shard_options warns)."""
     out = [int(round(b / align)) * align for b in bounds]
     for k in range(1, len(out)):
         out[k] = max(out[k], out[k - 1])
@@ -245,6 +246,13 @@ def shard_options(opt) -> None:
         r1, r2 = shard_ranges(opt.in1, opt.in2 or None, n, opt.batchSize)
         opt.shardRange1 = r1[k]
         opt.shardRange2 = r2[k] if r2 else None
+    rec = getattr(opt, "shardRecRange", None)
+    if (rec[0] >= (n_rec if rec[1] is None else rec[1]) if rec
+            else opt.shardRange1[0] == opt.shardRange1[1]):
+        sys.stderr.write(
+            "WARNING: shard %d of %d has no reads: shards start at "
+            "multiples of --batch_size (%d), and the input holds fewer "
+            "than %d batches\n" % (k + 1, n, opt.batchSize, n))
     for attr in ("out1", "out2", "unpaired1", "unpaired2", "failedOut",
                  "overlappedOut"):
         v = getattr(opt, attr)

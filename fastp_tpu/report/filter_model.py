@@ -34,7 +34,7 @@ def _map_add(m: dict, adapter: str, count: int) -> bool:
 
 
 class FilterResult:
-    def __init__(self, opt: Options, paired: bool):
+    def __init__(self, opt: Options, paired: bool, log: bool = False):
         self.opt = opt
         self.paired = paired
         self.filter_read_stats = np.zeros(FILTER_RESULT_TYPES, np.int64)
@@ -46,18 +46,18 @@ class FilterResult:
         # native recorder (fastq_native.cpp adrec_*): keeps the adapter
         # count maps in C++ so per-row PE read-through recording costs no
         # Python; exported to plain dicts on first read (reports).
-        # One shard of a multi-process run records an event log instead:
-        # the maps' caps depend on input order across shards, so they are
-        # rebuilt at merge (replay_adapter_logs), exactly as one process
-        # reading the whole input would have built them.
-        from ..parallel import multihost
-        self._log = multihost.active()
-        self._events = [] if self._log else None  # pure-Python path's log
+        # log=True (one shard of a multi-process run) records an event log
+        # instead: the maps' caps depend on input order across shards, so
+        # they are rebuilt at merge (replay_adapter_logs), exactly as one
+        # process reading the whole input would have built them.  The log
+        # keeps each distinct add once, with its counts summed (see
+        # fastq_native.cpp AdRec), so it grows with the distinct adapters.
+        self._events = {} if log else None  # pure-Python path's log
         self._adrec = None
         try:
             from ..io import native as _native_mod
             if _native_mod.get_lib() is not None:
-                self._adrec = _native_mod.AdapterRecorder(log=self._log)
+                self._adrec = _native_mod.AdapterRecorder(log=log)
                 self._events = None
         except Exception:
             self._adrec = None
@@ -96,8 +96,8 @@ class FilterResult:
         if self._adrec is not None:
             self._adrec.add_one(adapter.encode("latin-1"), is_r2, count)
         elif self._events is not None:
-            self._events.append((None, adapter, count) if is_r2
-                                else (adapter, None, count))
+            self._log_add((None, adapter, False) if is_r2
+                          else (adapter, None, False), count)
         else:
             _map_add(self._adapter2 if is_r2 else self._adapter1, adapter,
                      count)
@@ -112,9 +112,14 @@ class FilterResult:
             self._adrec.add_pair_strs(adapter1.encode("latin-1"),
                                       adapter2.encode("latin-1"), count)
         elif self._events is not None:
-            self._events.append((adapter1, adapter2, count, "pair"))
+            self._log_add((adapter1, adapter2, True), count)
         else:
             self._pair_add(adapter1, adapter2, count)
+
+    def _log_add(self, kind, count: int):
+        """One add in log mode: the first add of a kind keeps its place,
+        later ones add to its count (exact, see fastq_native.cpp AdRec)."""
+        self._events[kind] = self._events.get(kind, 0) + count
 
     def _pair_add(self, adapter1: str, adapter2: str, count: int):
         if adapter1 and not _map_add(self._adapter1, adapter1, count):
@@ -182,13 +187,13 @@ class FilterResult:
         self._events = None
         self._adapter1, self._adapter2 = {}, {}
         for log in logs:
-            for ev in log:
-                if len(ev) == 4:
-                    self._pair_add(*ev[:3])
-                elif ev[0] is None:
-                    _map_add(self._adapter2, ev[1], ev[2])
+            for (a1, a2, pair), count in log:
+                if pair:
+                    self._pair_add(a1, a2, count)
+                elif a1 is None:
+                    _map_add(self._adapter2, a2, count)
                 else:
-                    _map_add(self._adapter1, ev[0], ev[2])
+                    _map_add(self._adapter1, a1, count)
 
     # -- cross-host merge (reference: FilterResult::merge,
     #    src/filterresult.cpp:38-89, whose per-thread merge of capped maps
@@ -202,7 +207,8 @@ class FilterResult:
             "trimmed_adapter_bases": self.trimmed_adapter_bases,
             "merged_pairs": self.merged_pairs,
             "adapter_log": (self._adrec.log_state()
-                            if self._adrec is not None else self._events),
+                            if self._adrec is not None
+                            else list((self._events or {}).items())),
             "correction_matrix": self.correction_matrix,
             "corrected_reads": self.corrected_reads,
             "polyx_trimmed_reads": self.polyx_trimmed_reads,

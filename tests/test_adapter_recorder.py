@@ -18,11 +18,11 @@ pytestmark = pytest.mark.skipif(native_mod.get_lib() is None,
                                 reason="native lib unavailable")
 
 
-def _mk_pair(with_native: bool) -> FilterResult:
-    fr = FilterResult(Options(), paired=True)
+def _mk_pair(with_native: bool, log: bool = False) -> FilterResult:
+    fr = FilterResult(Options(), paired=True, log=log)
     if not with_native:
         fr._adrec = None
-        fr._events = [] if fr._log else None
+        fr._events = {} if log else None
     return fr
 
 
@@ -109,8 +109,7 @@ def test_single_adds_and_state_dict_roundtrip(monkeypatch):
     assert nat.trimmed_adapter_bases == py.trimmed_adapter_bases
     # the same adds split over two shards: their logs, replayed in shard
     # order, rebuild the maps; merge_state adds the counters
-    monkeypatch.setenv("FASTP_TPU_SHARD_COUNT", "2")
-    shards = [_mk_pair(True), _mk_pair(True)]
+    shards = [_mk_pair(True, log=True), _mk_pair(True, log=True)]
     for i, s in enumerate(seqs):
         sh = shards[i * 2 // len(seqs)]
         sh.add_adapter_trimmed(s, is_r2=False)
@@ -145,14 +144,55 @@ def test_shard_logs_replay_to_one_process_maps(with_native, monkeypatch):
             one.add_adapter_trimmed_pair(a1, a2)
         else:
             one.add_adapter_trimmed(a2, is_r2=True)
-    monkeypatch.setenv("FASTP_TPU_SHARD_COUNT", "3")
-    shards = [_mk_pair(with_native) for _ in range(3)]
+    shards = [_mk_pair(with_native, log=True) for _ in range(3)]
     for k, (a1, a2) in enumerate(adds):
         sh = shards[k * 3 // n]
         if len(a2) % 3:
             sh.add_adapter_trimmed_pair(a1, a2)
         else:
             sh.add_adapter_trimmed(a2, is_r2=True)
+    merged = shards[0]
+    merged.replay_adapter_logs([sh.state_dict()["adapter_log"]
+                                for sh in shards])
+    assert len(one.adapter1) > filter_model.MAX_ADAPTER_REC
+    assert merged.adapter1 == one.adapter1
+    assert merged.adapter2 == one.adapter2
+
+
+def _log_len(fr):
+    if fr._adrec is not None:
+        return len(fr.state_dict()["adapter_log"]["events"]) // 3
+    return len(fr.state_dict()["adapter_log"])
+
+
+@pytest.mark.parametrize("with_native", [True, False],
+                         ids=["native", "python"])
+def test_shard_log_grows_with_distinct_adds(with_native):
+    """A shard's log keeps each distinct add once (counts summed), however
+    many reads repeat it, and its replay still equals one process fed
+    every add in order, across the caps."""
+    rng = np.random.default_rng(5)
+    n_kinds = 2 * filter_model.MAX_ADAPTER_REC + 3000  # half touch map 1
+    keys = rng.integers(65, 69, size=(n_kinds, 10), dtype=np.uint8)
+    kinds = [(keys[k].tobytes().decode("latin-1"),
+              keys[(k * 7) % n_kinds].tobytes().decode("latin-1")[:1 + k % 9],
+              k % 4) for k in range(n_kinds)]
+    # every kind three times: in order, then shuffled, then in order
+    seq = (list(range(n_kinds)) + list(rng.permutation(n_kinds))
+           + list(range(n_kinds)))
+    one = _mk_pair(with_native)
+    shards = [_mk_pair(with_native, log=True) for _ in range(2)]
+    for j, k in enumerate(seq):
+        a1, a2, how = kinds[k]
+        for fr in (one, shards[j * 2 // len(seq)]):
+            if how == 0:
+                fr.add_adapter_trimmed(a2, is_r2=True, count=2)
+            elif how == 1:
+                fr.add_adapter_trimmed(a1, is_r2=False)
+            else:
+                fr.add_adapter_trimmed_pair(a1 if how == 2 else "", a2)
+    assert _log_len(shards[0]) <= n_kinds
+    assert _log_len(shards[1]) <= n_kinds
     merged = shards[0]
     merged.replay_adapter_logs([sh.state_dict()["adapter_log"]
                                 for sh in shards])

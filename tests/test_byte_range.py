@@ -1,7 +1,10 @@
 """Byte-range reader + multi-host shard-range arithmetic unit tests
 (fastp_tpu/parallel/multihost.py, io/fastq.py byte_range support)."""
+import gzip
 import os
 import sys
+
+import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -67,3 +70,30 @@ def test_align_to_record_never_splits(tmp_path):
         with open(p, "rb") as f:
             head = f.read(pos)
         assert head.count(b"\n") % 4 == 0
+
+
+@pytest.mark.parametrize("gz", [False, True], ids=["plain", "gzip"])
+def test_empty_shard_warns(gz, tmp_path, monkeypatch, capsys):
+    """Shards start at multiples of --batch_size: 100 pairs in batches of
+    64 over 4 shards leave shards 1 and 3 without reads, and they say so."""
+    from fastp_tpu.config import Options
+    paths = []
+    for m in (1, 2):
+        p = str(tmp_path / ("R%d.fq" % m))
+        _write_corpus(p, 100)
+        if gz:
+            with open(p, "rb") as f, gzip.open(p + ".gz", "wb") as g:
+                g.write(f.read())
+            p += ".gz"
+        paths.append(p)
+    monkeypatch.setenv("FASTP_TPU_SHARD_COUNT", "4")
+    empty = []
+    for k in range(4):
+        monkeypatch.setenv("FASTP_TPU_SHARD_INDEX", str(k))
+        opt = Options()
+        opt.in1, opt.in2 = paths
+        opt.batchSize = 64
+        multihost.shard_options(opt)
+        if "has no reads" in capsys.readouterr().err:
+            empty.append(k + 1)
+    assert empty == [1, 3]

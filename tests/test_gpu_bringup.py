@@ -1,7 +1,8 @@
 """CPU checks of what surrounds the GPU path: the overlap sweep chosen by
 platform, the compile-cache location, one card per --local_processes
-child, a server whose backend fails to start, and chip_smoke.py refusing
-to report success without a GPU."""
+child, a server whose backend fails to start or is not the expected one,
+and chip_smoke.py refusing to report success without a GPU."""
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -26,7 +27,7 @@ def test_analyze_picks_sweep_by_platform(platform, monkeypatch):
     jaxpr = jax.make_jaxpr(lambda a, b: overlap.analyze(
         a, n, b, n, 5, 30, 0.2, False, clean=jnp.all(a > 0)))(s, s)
     text = str(jaxpr)
-    if overlap.SWEEP_BY_PLATFORM[platform] == "cond":
+    if platform == "cpu":
         assert "cond[" in text and "conv_general_dilated" in text
     else:
         assert "cond[" not in text and "conv_general_dilated" not in text
@@ -100,6 +101,28 @@ def test_serve_exits_when_backend_fails(tmp_path):
     assert "READY" not in r.stdout
     assert "FATAL" in r.stderr
     assert not (tmp_path / "s.sock").exists()
+
+
+@pytest.mark.parametrize("expect", ["cpu", "gpu"])
+def test_smoke_server_backend_check(expect, tmp_path):
+    """chip_smoke's served phases accept a server only when its READY line
+    names the expected backend: a server on the CPU (where JAX lands when
+    the GPU fails to start and JAX_PLATFORMS is unset) fails the phase and
+    is stopped."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    try:
+        if expect == "gpu":
+            with pytest.raises(smoke.PhaseError,
+                               match="server runs on cpu, not gpu"):
+                smoke.Server(str(tmp_path), platform="cpu", expect=expect)
+        else:
+            smoke.Server(str(tmp_path), platform="cpu", expect=expect).close()
+        assert all(p.poll() is not None for p in smoke._children)
+    finally:
+        smoke.stop_children()
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])

@@ -25,7 +25,7 @@ def test_server_round_trip(tmp_path):
         env=env, cwd=str(tmp_path), stdout=subprocess.PIPE, text=True)
     try:
         line = srv.stdout.readline()
-        assert line.startswith("READY"), line
+        assert line.split()[::2] == ["READY", "cpu"], line
         cenv = dict(env, FASTP_TPU_SERVER=sock)
         for k in range(2):  # second job exercises the warm/memoized path
             d = tmp_path / ("job%d" % k)

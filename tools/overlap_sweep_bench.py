@@ -1,27 +1,17 @@
 """Check and time the PE overlap sweep candidates on the accelerator.
 
     python tools/overlap_sweep_bench.py [--batch 65536] [--width 160]
-                                        [--e2e-pairs 2000000]
 
-Op phase: each ungapped sweep -- the offset loop (`_analyze_loop`) and the
-one-hot conv under the clean/dirty `lax.cond` -- runs on a B x L sample of
-random reads with planted overlaps (seeded).  Each must equal
-`hostview.host_analyze_overlap`, the numpy port of the reference, in
-overlapped/offset/overlap_len/diff with zero tolerance; its time is the
-median of 20 runs after warm-up.  The f32 conv (L > 256) is checked the
-same way at L=320, and the k-mer counts of `stats.stat_batch` against a
-numpy count.
-
-End-to-end phase (--e2e-pairs N > 0): the config-3 job (--correction
---cut_right, explicit adapters, 64k batches) on N synthetic PE150 pairs,
-run through the CLI inside this process once per candidate, in the order
-A B B A; each visit runs the job twice and reports the second wall.
-Every candidate must write the same FASTQ bytes.
+Each ungapped sweep -- the offset loop (`_analyze_loop`, what `analyze`
+runs off the CPU) and the one-hot conv under the clean/dirty `lax.cond`
+(what it runs on the CPU) -- runs on a B x L sample of random reads with
+planted overlaps (seeded).  Each must equal `hostview.host_analyze_overlap`,
+the numpy port of the reference, in overlapped/offset/overlap_len/diff with
+zero tolerance; its time is the median of 20 runs after warm-up.  The f32
+conv (L > 256) is checked the same way at L=320, and the k-mer counts of
+`stats.stat_batch` against a numpy count.
 """
 import argparse
-import contextlib
-import hashlib
-import io
 import os
 import subprocess
 import sys
@@ -130,31 +120,32 @@ def _block(tree):
     jax.tree_util.tree_map(lambda x: x.block_until_ready(), tree)
 
 
-def candidates():
-    from fastp_tpu.ops import overlap
-    return overlap, ["loop", "cond"]
-
-
-def compile_candidate(name, args):
-    """The sweep exactly as analyze() would trace it with SWEEP=name."""
+def sweeps():
+    """name -> the ungapped sweep as the pipeline step traces it."""
     import jax
     import jax.numpy as jnp
-    overlap, _ = candidates()
-    plat = jax.default_backend()
-    keep = overlap.SWEEP_BY_PLATFORM.get(plat)
-    overlap.SWEEP_BY_PLATFORM[plat] = name
+    from fastp_tpu.ops import overlap
+    consts = (DIFF_LIMIT, OV_REQ, DIFF_PCT)
 
-    def fn(s1, l1, s2, l2):
+    def loop(s1, l1, s2, l2):
+        return overlap._analyze_loop(s1, l1, s2, l2, *consts, False)
+
+    def cond(s1, l1, s2, l2):
         ok = (lambda x: jnp.all((x == 0) | (x == 65) | (x == 67) | (x == 71)
                                 | (x == 84) | (x == 78)))
-        return overlap.analyze(s1, l1, s2, l2, DIFF_LIMIT, OV_REQ, DIFF_PCT,
-                               False, clean=ok(s1) & ok(s2))
-    try:
-        t0 = time.perf_counter()
-        comp = jax.jit(fn).lower(*args).compile()
-        return comp, time.perf_counter() - t0
-    finally:
-        overlap.SWEEP_BY_PLATFORM[plat] = keep
+        return jax.lax.cond(
+            ok(s1) & ok(s2),
+            lambda ops: overlap.analyze_conv(*ops, *consts),
+            lambda ops: overlap._analyze_loop(*ops, *consts, False),
+            (s1, l1, s2, l2))
+    return {"loop": loop, "cond": cond}
+
+
+def compile_sweep(fn, args):
+    import jax
+    t0 = time.perf_counter()
+    comp = jax.jit(fn).lower(*args).compile()
+    return comp, time.perf_counter() - t0
 
 
 def op_phase(B, L, seed):
@@ -168,11 +159,11 @@ def op_phase(B, L, seed):
 
     import jax
     args = [jax.device_put(a) for a in (s1, l1, s2, l2)]
-    overlap, names = candidates()
+    from fastp_tpu.ops import overlap
     ok = True
-    for name in names:
+    for name, fn in sweeps().items():
         try:
-            comp, tc = compile_candidate(name, args)
+            comp, tc = compile_sweep(fn, args)
             bad = mismatched_rows(comp(*args), ref)
             med, best = timed(comp, args)
             print("sweep %-6s B=%d L=%d: compile %.1fs, median %.3f ms, "
@@ -207,74 +198,11 @@ def op_phase(B, L, seed):
     return ok and kbad == 0
 
 
-def _md5(path):
-    h = hashlib.md5()
-    with open(path, "rb") as f:
-        for chunk in iter(lambda: f.read(1 << 24), b""):
-            h.update(chunk)
-    return h.hexdigest()
-
-
-def e2e_phase(pairs, workdir, corpus_proc):
-    import jax
-    from fastp_tpu.cli import main as cli_main
-    from fastp_tpu.pipeline import device
-    overlap, names = candidates()
-    corpus_proc.wait()
-    if corpus_proc.returncode != 0:
-        print("corpus generation failed", flush=True)
-        return False
-    r1, r2 = (os.path.join(workdir, "R%d.fq" % k) for k in (1, 2))
-    argv = ["fastp_tpu", "-i", r1, "-I", r2, "-o", "out1.fq", "-O", "out2.fq",
-            "--correction", "--cut_right",
-            "-a", "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA",
-            "--adapter_sequence_r2", "AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT",
-            "--batch_size", "65536"]
-    plat = jax.default_backend()
-    keep = overlap.SWEEP_BY_PLATFORM[plat]
-    os.environ["FASTP_TPU_TIMING"] = "1"
-    digests = {}
-    ok = True
-    cwd = os.getcwd()
-    os.chdir(workdir)
-    try:
-        for name in names + names[::-1]:
-            overlap.SWEEP_BY_PLATFORM[plat] = name
-            device.build_pe_step.cache_clear()
-            walls = []
-            for _ in range(2):
-                err = io.StringIO()
-                t0 = time.perf_counter()
-                with contextlib.redirect_stderr(err):
-                    rc = cli_main(argv)
-                walls.append(time.perf_counter() - t0)
-                if rc:
-                    print(err.getvalue()[-3000:])
-                    return False
-            timing = [ln for ln in err.getvalue().splitlines()
-                      if ln.startswith("TIMING")]
-            dig = (_md5("out1.fq"), _md5("out2.fq"))
-            digests.setdefault(name, dig)
-            ok &= dig == digests[names[0]]
-            print("e2e %-6s %d pairs: first %.2fs, wall %.2fs, %.0f reads/s"
-                  % (name, pairs, walls[0], walls[1], 2 * pairs / walls[1]),
-                  flush=True)
-            for ln in timing:
-                print("    " + ln, flush=True)
-    finally:
-        overlap.SWEEP_BY_PLATFORM[plat] = keep
-        os.chdir(cwd)
-    print("e2e outputs identical across candidates: %s" % ok, flush=True)
-    return ok
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=65536)
     ap.add_argument("--width", type=int, default=160)
     ap.add_argument("--seed", type=int, default=11)
-    ap.add_argument("--e2e-pairs", type=int, default=0)
-    ap.add_argument("--workdir", default=os.path.join(ROOT, ".bench", "sweep"))
     a = ap.parse_args()
     try:
         print(subprocess.run(
@@ -283,23 +211,12 @@ def main():
             timeout=30).stdout.strip(), flush=True)
     except (OSError, subprocess.SubprocessError):
         print("nvidia-smi: not available", flush=True)
-    corpus = None
-    if a.e2e_pairs:
-        os.makedirs(a.workdir, exist_ok=True)
-        corpus = subprocess.Popen(
-            [sys.executable, os.path.join(ROOT, "tools", "make_synth.py"),
-             "--reads", str(a.e2e_pairs), "--seed", str(a.seed),
-             "--out1", os.path.join(a.workdir, "R1.fq"),
-             "--out2", os.path.join(a.workdir, "R2.fq")],
-            stdout=subprocess.DEVNULL)
     ok = op_phase(a.batch, a.width, a.seed)
     import jax
     d = jax.devices()[0]
     print("device: %s %s x%d, jax %s" % (d.platform, d.device_kind,
                                          len(jax.devices()), jax.__version__),
           flush=True)
-    if corpus is not None:
-        ok &= e2e_phase(a.e2e_pairs, a.workdir, corpus)
     print("ALL OK" if ok else "FAILED", flush=True)
     return 0 if ok else 1
 
